@@ -102,26 +102,32 @@ def bench_kmers_device(reps):
 
 
 def bench_kmers_device_resident(reps):
-    """Steady-state fused Pallas tally on a device-resident batch — the
-    per-chip hot loop without host framing/transfer (the shape the
-    headline bench.py measures)."""
-    import jax
+    """Steady-state hash step (``pipeline._hash_step_fn``, the step
+    ``hash_count_file`` runs) on a device-resident batch — the per-device
+    hot loop without host framing/transfer (the shape the headline
+    bench.py measures)."""
     import jax.numpy as jnp
 
     from needletail_tpu.batch import read_batches
-    from needletail_tpu.device.pallas_kernels import canonical_hash_keys
+    from needletail_tpu.device.pipeline import _hash_step_fn
 
     batch = next(iter(read_batches(KMER_FILE, batch_size=640, max_len=5120)))
-    batch = batch.pad_reads_to(1024)  # block_rows multiple
     seqs = jnp.asarray(batch.seqs)
     lengths = jnp.asarray(batch.lengths)
+    step = _hash_step_fn(31, 16, False, True)
 
     inner = 10  # chain calls so the dispatch round trip amortizes
 
     def run():
+        state = (
+            jnp.zeros(1 << 16, jnp.uint32),
+            jnp.zeros(1 << 16, jnp.uint32),
+            jnp.zeros(4, jnp.uint32),
+        )
         for _ in range(inner):
-            keys, total, fwd = canonical_hash_keys(seqs, lengths, 31, table_bits=16)
-        return int(total), int(fwd)
+            state = step(*state, seqs, lengths)
+        tallies = state[2]
+        return int(tallies[0]) // inner, int(tallies[2]) // inner
 
     run()  # compile warmup
     dt, (total, fwd) = timeit(run, reps)

@@ -39,7 +39,7 @@ def main() -> None:
     base = None
     for n in sizes:
         mesh = make_mesh(all_devices[:n], data=n, table=1)
-        init, step, place = make_hash_update_step(mesh, args.k, block_rows=8)
+        init, step, place = make_hash_update_step(mesh, args.k)
         rows = args.per_chip_reads * n
         seqs = rng.choice(
             np.frombuffer(b"ACGT", np.uint8), size=(rows, args.read_len)

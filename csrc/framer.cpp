@@ -1,5 +1,5 @@
 // needletail_tpu native framer: SIMD-speed FASTA/FASTQ record scanning and
-// padded-batch filling for the TPU ingest path.
+// padded-batch filling for the device ingest path.
 //
 // Semantics mirror the reference framers exactly (needletail
 // src/parser/fastq.rs, src/parser/fasta.rs): strict 4-line FASTQ records

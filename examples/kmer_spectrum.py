@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""TPU k-mer spectrum of a FASTX file.
+"""Device k-mer spectrum of a FASTX file.
 
     python examples/kmer_spectrum.py reads.fq.gz --k 21 --top 10
 

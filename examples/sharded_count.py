@@ -2,9 +2,9 @@
 
     python examples/sharded_count.py reads.fq --k 21
 
-On a real pod slice each host runs this same program (SPMD) over its own
+On a multi-host cluster each host runs this same program (SPMD) over its own
 byte range (see ``needletail_tpu.parallel.distributed``); on one host it
-demonstrates the mesh + psum_scatter table merge.  To try it without TPU
+demonstrates the mesh + psum_scatter table merge.  To try it without GPU
 hardware:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \

@@ -1,11 +1,12 @@
-"""needletail_tpu — a TPU-native FASTX ingest and k-mer engine.
+"""needletail_tpu — a JAX FASTX ingest and k-mer engine for accelerators.
 
 A from-scratch framework with the capabilities of onecodex/needletail
 (FASTA/FASTQ streaming parsing, sequence normalization, reverse complement,
 canonical k-mers, 2-bit packed k-mers, Phred quality handling), re-designed
-TPU-first: a host-side streaming framer feeds fixed-shape padded base
-tensors to JAX/Pallas device kernels, and k-mer counting runs as sharded
-scatter-add tables merged with collectives on a ``jax.sharding.Mesh``.
+for an accelerator: a host-side streaming framer feeds fixed-shape padded
+base tensors to jitted JAX device steps, and k-mer counting runs as sharded
+scatter-add tables and sorted runs merged with collectives on a
+``jax.sharding.Mesh``.
 
 Layered API:
   * ``needletail_tpu`` (this module)  — needletail-compatible surface:
@@ -15,7 +16,7 @@ Layered API:
   * ``needletail_tpu.parser``         — streaming framers + SequenceRecord.
   * ``needletail_tpu.sequence/kmer/bitkmer/quality`` — host sequence ops.
   * ``needletail_tpu.batch``          — padded batch ingestion for devices.
-  * ``needletail_tpu.device``         — JAX/Pallas kernels (normalize, rc,
+  * ``needletail_tpu.device``         — JAX device ops (normalize, rc,
     quality-mask, 2-bit encode, canonical k-mers, count tables).
   * ``needletail_tpu.parallel``       — mesh/sharding + collective merges.
 """
@@ -26,9 +27,11 @@ import os as _os
 def _enable_jax_compile_cache() -> None:
     """Enable JAX's persistent compilation cache unless the user has their
     own setting.  Big-array ``lax.sort`` programs (the exact-spectrum path)
-    take ~30s to compile on TPU toolchains; the cache turns every repeat
-    compile across processes into a ~0.2s disk hit.  Opt out with
-    ``NEEDLETAIL_TPU_NO_COMPILE_CACHE=1``."""
+    take seconds to compile; the cache turns every repeat compile across
+    processes into a disk hit.  ``JAX_COMPILATION_CACHE_DIR`` wins when
+    set; otherwise the cache lives in ``.jax_cache/`` at the root of the
+    checkout (a fixed path, so later processes find it again).  Opt out
+    with ``NEEDLETAIL_TPU_NO_COMPILE_CACHE=1``."""
     if _os.environ.get("NEEDLETAIL_TPU_NO_COMPILE_CACHE"):
         return
     if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
@@ -40,12 +43,12 @@ def _enable_jax_compile_cache() -> None:
             return
         # CPU-only sessions skip the cache: XLA:CPU AOT results encode the
         # compile machine's ISA features and can SIGILL on a different
-        # host, and CPU compiles are fast anyway.  The ~30s compiles the
-        # cache exists for (big lax.sort programs) are TPU-side.
+        # host, and CPU compiles are fast anyway.
         if (jax.config.jax_platforms or "").strip() == "cpu":
             return
         cache_dir = _os.path.join(
-            _os.path.expanduser("~"), ".cache", "needletail_tpu", "jax"
+            _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+            ".jax_cache",
         )
         _os.makedirs(cache_dir, exist_ok=True)
         jax.config.update("jax_compilation_cache_dir", cache_dir)

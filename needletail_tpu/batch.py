@@ -1,8 +1,8 @@
 """Batched ingestion: records -> fixed-shape padded tensors for devices.
 
-This is the TPU-native unit of work.  The reference's device-less design is a
+This is the device unit of work.  The reference's device-less design is a
 pull iterator over single records (needletail src/parser/utils.rs:119-130);
-on TPU the natural unit is a padded ``[reads, max_len] uint8`` tensor plus a
+on an accelerator the natural unit is a padded ``[reads, max_len] uint8`` tensor plus a
 length vector, so normalization / reverse complement / k-mer extraction can
 run as vectorized kernels over the lane dimension (SURVEY.md §7).
 

@@ -1,7 +1,7 @@
 """Command-line interface: ``needletail-tpu <command>``.
 
 The reference ships an example binary (``examples/stdin_pipe.rs``); this CLI
-is the product-grade equivalent over the TPU pipelines:
+is the product-grade equivalent over the device pipelines:
 
     needletail-tpu stats reads.fq.gz
     needletail-tpu count reads.fq -k 21 --top 10

@@ -1,4 +1,4 @@
-"""Device (TPU) compute path: JAX/Pallas kernels over padded read batches.
+"""Device compute path: jitted JAX steps over padded read batches.
 
 Import this subpackage explicitly — the top-level ``needletail_tpu`` package
 stays importable without initializing JAX.
@@ -10,8 +10,8 @@ Layout:
                   for k<=31), validity masks.
   * ``count``   — dense 4^k spectra, targeted k-mer match counts, sorted
                   exact spectra for large k.
+  * ``hashcount`` — canonical k-mer hash keys and the hash-table update.
   * ``pipeline``— fused, jitted end-to-end batch pipelines.
-  * ``pallas_kernels`` — hand-written Pallas TPU kernels for the hot loop.
 """
 
 from . import count, kmers, minimizers, ops, pipeline, quality, tiling

@@ -1,9 +1,7 @@
-"""Shared doubling-ladder window packing, parameterized by the roll primitive.
+"""Doubling-ladder window packing, parameterized by the roll primitive.
 
-Both the XLA path (``device.kmers``, ``jnp.roll``) and the Pallas kernel
-(``device.pallas_kernels``, ``pltpu.roll``) build the same power-of-two
-ladders; keeping the recurrences and compose orders here preserves their
-bit-for-bit parity with one source of truth.
+``device.kmers`` builds its windows from these power-of-two ladders with
+``jnp.roll``; XLA fuses the shift/roll/select chains into loop fusions.
 
 Ladder semantics over codes [*, L] uint32 (2-bit base codes, 255 invalid):
 

@@ -7,12 +7,11 @@ reference's integer encoding, ref bitkmer.rs:26-36):
   * k <= 16: ``lo`` holds all ``2k`` bits, ``hi`` is 0.
   * 16 < k <= 31: ``hi`` holds the first ``k-16`` bases, ``lo`` the last 16.
 
-This keeps the hot loop in native 32-bit lanes (the TPU VPU has no 64-bit
-integer datapath; pairs + a carry-free split make compares cheap).
+This keeps the hot loop in native 32-bit lanes (JAX runs without 64-bit
+types by default; pairs + a carry-free split make compares cheap).
 
-Packing is a static k-step shift-accumulate over the lane dimension — XLA
-fuses it into a single HBM pass; the Pallas kernel variant keeps the batch
-tile resident in VMEM (see ``pallas_kernels``).
+Packing is a static doubling ladder of shifts over the lane dimension that
+XLA fuses into a single pass over device memory.
 
 Canonical semantics follow the *bitkmer* path of the reference: the
 canonical value is ``min(fwd, rc)`` as integers and ties keep the forward

@@ -1,6 +1,6 @@
 """High-throughput batched FASTQ/FASTA ingestion via the native framer.
 
-This is the host engine that keeps TPU chips fed (SURVEY.md §7 step 2/7):
+This is the host engine that keeps the accelerator fed (SURVEY.md §7 step 2/7):
 bytes stream through the decompressor into a reusable buffer, the C scanner
 frames records at memchr speed, and sequences/qualities are memcpy'd straight
 into padded ``[batch, max_len]`` numpy arrays — no per-record Python objects.

@@ -1,8 +1,9 @@
 """ctypes binding to the native framer (csrc/framer.cpp).
 
 The shared library is built lazily with ``make`` on first use and cached next
-to the sources.  Everything degrades gracefully: when the toolchain or
-library is unavailable, callers fall back to the pure-Python framers.
+to the sources (it is not tracked by git).  Everything degrades gracefully:
+when the toolchain or library is unavailable, callers fall back to the
+pure-Python framers.
 """
 
 from __future__ import annotations
@@ -42,19 +43,35 @@ def _wheel_library() -> Optional[Path]:
 
 
 def _build() -> bool:
-    if not (_CSRC / "framer.cpp").exists():
+    """Build ``csrc/libntframer.so`` with ``make`` unless it is up to date.
+
+    Concurrent importers (test workers, framing processes) serialize on a
+    lock file, and the library is compiled under a private name and then
+    renamed, so no process ever loads a half-written file.
+    """
+    src = _CSRC / "framer.cpp"
+    if not src.exists():
         return False
-    if _SO.exists() and _SO.stat().st_mtime >= (_CSRC / "framer.cpp").stat().st_mtime:
-        return True
+    import fcntl
+
     try:
-        subprocess.run(
-            ["make", "-s"],
-            cwd=_CSRC,
-            check=True,
-            capture_output=True,
-            timeout=120,
-        )
-        return _SO.exists()
+        with open(_CSRC / ".build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if _SO.exists() and _SO.stat().st_mtime >= src.stat().st_mtime:
+                return True
+            tmp = _SO.with_name(f"{_SO.name}.{os.getpid()}.tmp")
+            try:
+                subprocess.run(
+                    ["make", "-s", f"OUT={tmp.name}"],
+                    cwd=_CSRC,
+                    check=True,
+                    capture_output=True,
+                    timeout=300,
+                )
+                os.replace(tmp, _SO)
+            finally:
+                tmp.unlink(missing_ok=True)
+        return True
     except (subprocess.SubprocessError, OSError):
         return False
 

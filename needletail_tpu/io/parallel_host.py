@@ -1,11 +1,11 @@
 """Multi-process host framing: parallel byte-range workers feeding batches.
 
-One framing core tops out around ~400 Mbases/s while a v5e chip counts at
-~3.3 Gbases/s — the host is the deployment bottleneck (SURVEY.md §7 hard
-part 3).  ``parallel_read_batches`` splits an uncompressed FASTX file into
-record-aligned byte ranges (``parallel.distributed.split_fastx_ranges``)
-and frames each range in its own worker process with the native scanner,
-streaming ``ReadBatch``es back over a queue.
+One framing core cannot keep an accelerator busy: the host is the
+deployment bottleneck (SURVEY.md §7 hard part 3).  ``parallel_read_batches``
+splits an uncompressed FASTX file into record-aligned byte ranges
+(``parallel.distributed.split_fastx_ranges``) and frames each range in its
+own worker process with the native scanner, streaming ``ReadBatch``es back
+over a queue.
 
 Batch arrival order interleaves across workers; every record is framed by
 exactly one worker, so any order-independent consumer (all the counting
@@ -197,7 +197,9 @@ def parallel_read_batches(
 
     ranges = split_fastx_ranges(path, workers)
     # spawn, never fork: the consumer typically has JAX (multithreaded)
-    # initialized, and forking a multithreaded process can deadlock
+    # initialized, and forking a multithreaded process can deadlock.  The
+    # workers import only host modules and never touch a JAX backend, so
+    # the parent stays the one process that holds the accelerator.
     ctx = mp.get_context("spawn")
     q = ctx.Queue(maxsize=4 * workers)
     pool = None

@@ -1,10 +1,10 @@
-"""Multi-chip scale-out: device meshes, sharded count tables, collectives.
+"""Multi-device scale-out: device meshes, sharded count tables, collectives.
 
 The reference is single-threaded (SURVEY.md §2: no parallelism of any kind);
-this subpackage is the from-scratch TPU design mandated by BASELINE.json:
+this subpackage is the from-scratch mesh design mandated by BASELINE.json:
 read batches stream data-parallel over the ``data`` mesh axis, the k-mer
 count table is sharded by key range over the ``table`` axis, and per-shard
-tables merge with ``psum`` over ICI.
+tables merge with ``psum`` collectives.
 """
 
 from .exact import ShardedSpectrumAccumulator, sharded_count_file

@@ -2,26 +2,16 @@
 
 ``exact.py`` and ``multik.py`` both end a flush the same way: per-shard
 lexicographic sort + run-length count (``device/count.unique_counts``)
-followed by distinct-to-front compaction so only each shard's distinct
-entries cross the host link.  The compaction used to be a 4-array stable
-sort (~6.7 ns/lane — the single largest exact-path term); this module
-routes it through the MXU slot-compaction cascade
-(``device/pallas_kernels.mxu_compact_slots``) when the stream's distinct
-density allows, with an exact sort fallback otherwise.
+followed, on real accelerators, by distinct-to-front compaction
+(``device/count.compact_runs_device``) so only each shard's distinct
+entries cross the host link.
 
 ``narrow=True`` (keys that fit one uint32, k <= 15: 2k <= 30 bits stays
 below the 0xFFFFFFFF sentinel) drops the hi plane end-to-end: the flush
-sort runs single-key (~3.2 vs ~5.0 ns/lane), the cascade carries 8 value
-planes instead of 12, and resolvers take/return only the lo buffer.
-
-SPMD safety: the overflow decision must be IDENTICAL on every process of
-a multi-host job (each process re-dispatches the same programs), so the
-fast pass psums the per-shard overflow flags over the ``data`` axis and
-every process branches on the same replicated scalars.
+sort runs single-key and resolvers take/return only the lo buffer.
 
 No reference equivalent (needletail is single-threaded; ref
-src/parser/mod.rs:85 ff. is a pull iterator) — this is TPU-native
-machinery for the BASELINE exact-at-scale mandate.
+src/parser/mod.rs:85 ff. is a pull iterator).
 """
 
 from __future__ import annotations
@@ -30,7 +20,6 @@ from typing import Callable, Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 from jax.sharding import Mesh
 from jax.sharding import PartitionSpec as P
 
@@ -42,27 +31,21 @@ ResolveFn = Callable[..., Tuple]
 
 
 def make_sharded_resolver(
-    mesh: Mesh, device_compact: bool, cascade: bool, narrow: bool = False
+    mesh: Mesh, device_compact: bool, narrow: bool = False
 ) -> ResolveFn:
     """Build ``resolve(buf_hi, buf_lo) -> (hi_c, lo_c, counts_c, ns)``
     (or, with ``narrow``, ``resolve(buf_lo) -> (lo_c, counts_c, ns)``).
 
     Per shard of the ``data`` axis: sort the buffered key lanes, run-length
     count, and (when ``device_compact``) move the distinct entries to a
-    front prefix with per-shard length ``ns``.  With ``cascade`` the
-    compaction runs as two MXU slot passes (64x stream reduction) + one
-    small stable sort, falling back to the full-stream stable sort when
-    any shard's chunk density overflows the slots.
+    front prefix with per-shard length ``ns``.
     """
     nbuf = 1 if narrow else 2
 
     def _split(bufs):
         return (None, bufs[0]) if narrow else (bufs[0], bufs[1])
 
-    def _outs(hi, *rest):
-        return rest if narrow else (hi, *rest)
-
-    def _safe(*bufs):
+    def _resolve(*bufs):
         hi_s, lo_s, counts = _count.unique_counts(*_split(bufs))
         if device_compact:
             hi_s, lo_s, counts, n = _count.compact_runs_device(
@@ -70,84 +53,15 @@ def make_sharded_resolver(
             )
         else:
             n = jnp.sum((counts > 0).astype(jnp.int32))
-        return _outs(hi_s, lo_s, counts, n.reshape(1))
+        out = (lo_s, counts, n.reshape(1))
+        return out if narrow else (hi_s, *out)
 
-    resolve_safe = jax.jit(
+    return jax.jit(
         jax.shard_map(
-            _safe,
+            _resolve,
             mesh=mesh,
             in_specs=(P("data"),) * nbuf,
             out_specs=(P("data"),) * (nbuf + 2),
         ),
         donate_argnums=tuple(range(nbuf)),
     )
-    if not (device_compact and cascade):
-        return resolve_safe
-
-    from ..device.pallas_kernels import mxu_compact_slots
-
-    def _fast(*bufs):
-        hi_s, lo_s, counts = _count.unique_counts(*_split(bufs))
-        h1, l1, c1, ok1 = mxu_compact_slots(hi_s, lo_s, counts)
-        h2, l2, c2, ok2 = mxu_compact_slots(h1, l1, c1)
-        # every process must take the same branch: reduce overflow flags
-        # over the mesh so the replicated scalars agree everywhere
-        bads = jnp.stack(
-            [
-                jax.lax.psum((~ok1).astype(jnp.int32), "data"),
-                jax.lax.psum((~ok2).astype(jnp.int32), "data"),
-            ]
-        )
-        return (
-            _outs(hi_s, lo_s, counts)
-            + _outs(h1, l1, c1)
-            + _outs(h2, l2, c2)
-            + (bads,)
-        )
-
-    resolve_fast = jax.jit(
-        jax.shard_map(
-            _fast,
-            mesh=mesh,
-            in_specs=(P("data"),) * nbuf,
-            out_specs=((P("data"),) * (3 * (nbuf + 1))) + (P(),),
-            # the Pallas out_shapes carry no vma annotation; the check
-            # cannot see that the kernel outputs vary over 'data'
-            check_vma=False,
-        ),
-        donate_argnums=tuple(range(nbuf)),
-    )
-
-    def _compact(*planes):
-        h, l, c, n = _count.compact_runs_device(*_split_planes(planes))
-        return _outs(h, l, c, n.reshape(1))
-
-    def _split_planes(planes):
-        return (None, *planes) if narrow else planes
-
-    final_compact = jax.jit(
-        jax.shard_map(
-            _compact,
-            mesh=mesh,
-            in_specs=(P("data"),) * (nbuf + 1),
-            out_specs=(P("data"),) * (nbuf + 2),
-        ),
-        donate_argnums=tuple(range(nbuf + 1)),
-    )
-
-    def resolve(*bufs):
-        out = resolve_fast(*bufs)
-        w = nbuf + 1
-        lvl0, lvl1, lvl2, bads = out[:w], out[w : 2 * w], out[2 * w : 3 * w], out[-1]
-        bad1, bad2 = (int(x) for x in np.asarray(bads))
-        if bad1:
-            # some shard's chunk held > slots distinct runs: the reduced
-            # planes dropped entries — compact the full sorted stream
-            chosen = lvl0
-        elif bad2:
-            chosen = lvl1
-        else:
-            chosen = lvl2
-        return final_compact(*chosen)
-
-    return resolve

@@ -2,13 +2,13 @@
 
 The reference has no cross-run checkpointing; within a stream its
 ``Position{line, byte}`` gives exact resume coordinates (ref utils.rs:53-72,
-SURVEY.md §5).  The TPU equivalent: a checkpoint is the pair
+SURVEY.md §5).  Here a checkpoint is the pair
 ``(input byte offset per host, count-table shards)``.  Tables are integer and
 order-independent, so resuming from a record-aligned byte offset reproduces
 the exact final spectrum.
 
 Storage is a plain ``.npz`` (the state is one int32 table + scalars; orbax
-would be overkill and keeps this importable without a TPU runtime).
+would be overkill and keeps this importable without an accelerator runtime).
 """
 
 from __future__ import annotations

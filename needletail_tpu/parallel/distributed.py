@@ -1,9 +1,13 @@
 """Multi-host scale-out: process init and per-host input partitioning.
 
 BASELINE config #5 design: each host streams a disjoint byte range of the
-input FASTQ data-parallel over DCN, frames locally, and feeds its chips; the
-sharded count table merges over ICI (``parallel.sharded``).  The reference
-has no distributed machinery (SURVEY.md §2) — this is new TPU-native design.
+input FASTQ data-parallel, frames locally, and feeds its devices; the
+sharded count table merges with collectives (``parallel.sharded``).  The reference
+has no distributed machinery (SURVEY.md §2) — this is new design.
+
+One process drives every device of a host; ``initialize`` is for jobs that
+span several hosts (one process per host).  Several processes on one GPU
+host would each try to take every card.
 
 Range splitting re-synchronizes to record boundaries: a FASTQ record start is
 a line beginning with ``@`` whose next-next line begins with ``+`` (the

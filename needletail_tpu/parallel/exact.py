@@ -49,7 +49,7 @@ def _fresh_fill(n: int, sharding: "NamedSharding") -> jax.Array:
     on real accelerators; the CPU backend copies).  Building two buffers
     by device_put-ing one fill array therefore hands the donation
     machinery two names for one buffer, and donating both in a single
-    step is undefined behavior (backend InvalidArgument on TPU).  Each
+    step is undefined behavior (the backend may reject it).  Each
     call here materializes a distinct on-device constant first, so the
     subsequent placement can alias safely.
     """
@@ -173,7 +173,7 @@ class ShardedSpectrumAccumulator:
         canonical k-mer extraction (e.g. (w, k) minimizer sketches);
         ``window_lanes(max_len) -> int`` must then give the per-read lane
         count that extraction emits.  Keys stay 2k-bit packed values, so
-        the narrow-key/sort/cascade machinery is unchanged."""
+        the narrow-key/sort machinery is unchanged."""
         if not 1 <= k <= 31:
             raise ValueError(f"k must be in [1, 31], got {k}")
         if packed and quality_cutoff is not None:
@@ -198,8 +198,8 @@ class ShardedSpectrumAccumulator:
             lambda max_len: max(max_len - k + 1, 0)
         )
         # k <= 15 keys fit one uint32 (2k <= 30 bits, below the sentinel):
-        # buffer only the lo plane — half the buffer HBM, a single-key
-        # flush sort (~3.2 vs ~5.0 ns/lane), an 8-plane compaction cascade
+        # buffer only the lo plane — half the buffer memory and a
+        # single-key flush sort
         narrow = k <= 15
         self._narrow = narrow
         self._nbuf = 1 if narrow else 2
@@ -281,19 +281,13 @@ class ShardedSpectrumAccumulator:
                 self._append_vb = None
 
         # compact on device for real accelerators (bounds each shard's
-        # host pull to its distinct entries; the MXU slot cascade replaces
-        # the stable-sort compaction when distinct density allows); skip
-        # both on the CPU backend where pulls are local copies
+        # host pull to its distinct entries); skip it on the CPU backend
+        # where pulls are local copies
         from ._resolve import make_sharded_resolver
 
         device_compact = jax.default_backend() != "cpu"
         self._device_compact = device_compact
-        self._resolve = make_sharded_resolver(
-            mesh,
-            device_compact,
-            cascade=jax.default_backend() == "tpu",
-            narrow=narrow,
-        )
+        self._resolve = make_sharded_resolver(mesh, device_compact, narrow=narrow)
 
     def place(self, seqs, lengths):
         """Shard a host batch over the data axis."""

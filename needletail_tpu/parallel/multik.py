@@ -8,8 +8,8 @@ both axes: every batch runs a single jitted ``shard_map`` step in which
   * the 2-bit encode (or packed-transport unpack) happens ONCE per chip,
     and the power-of-two window ladders are shared across k by XLA CSE
     (k=21 reuses k=16's prefix, exactly like the single-chip multi-k path);
-  * each dense k <= 9 histograms locally into a full [4^k] table with the
-    int4 MXU kernel (``dense_spectrum``) and routes counts to their owners
+  * each dense k <= DENSE_STEP_K histograms locally into a full [4^k]
+    table (``dense_spectrum``) and routes counts to their owners
     with one ``psum_scatter`` over ``data`` (chip d owns bins
     [d*4^k/N, (d+1)*4^k/N)) accumulated as uint32 limb pairs — the
     hash-pipeline topology with exact bins;
@@ -54,7 +54,7 @@ __all__ = ["ShardedMultiKAccumulator", "sharded_multi_k_count_file"]
 
 _SENTINEL = 0xFFFFFFFF
 
-_MXU_DENSE_K = _count.MXU_DENSE_K
+_DENSE_STEP_K = _count.DENSE_STEP_K
 
 
 class ShardedMultiKAccumulator:
@@ -88,17 +88,15 @@ class ShardedMultiKAccumulator:
         self._mesh = mesh
         self._n_data = _require_data_mesh(mesh)
         self._ks = ks
-        # per-step dense limb tables ride the int4 MXU histogram, which
-        # reaches 4^9 (masked 2^16-bin passes); k = 10..12 keeps the dense
-        # OUTPUT contract but accumulates through the narrow sparse
-        # buffers and densifies at finish — the same routing count_file
-        # uses (the per-batch XLA scatter-add it replaces is ~25x slower,
-        # see PERF_NOTES.md)
-        self._dense_ks = tuple(k for k in ks if k <= _MXU_DENSE_K)
+        # per-step dense limb tables up to DENSE_STEP_K; k = 10..12 keeps
+        # the dense OUTPUT contract but accumulates through the narrow
+        # sparse buffers and densifies at finish — the same routing
+        # count_file uses (see count.DENSE_STEP_K)
+        self._dense_ks = tuple(k for k in ks if k <= _DENSE_STEP_K)
         self._densify_ks = frozenset(
-            k for k in ks if _MXU_DENSE_K < k <= _count.MAX_DENSE_K
+            k for k in ks if _DENSE_STEP_K < k <= _count.MAX_DENSE_K
         )
-        self._sparse_ks = tuple(k for k in ks if k > _MXU_DENSE_K)
+        self._sparse_ks = tuple(k for k in ks if k > _DENSE_STEP_K)
         for k in self._dense_ks:
             if (4**k) % self._n_data:
                 raise ValueError(
@@ -217,10 +215,6 @@ class ShardedMultiKAccumulator:
             return jax.jit(
                 jax.shard_map(
                     body, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                    # pallas_call outputs (the MXU histogram) carry no
-                    # varying-mesh-axes metadata; skip the vma check as the
-                    # other Pallas-in-shard_map pipelines do
-                    check_vma=False,
                 ),
                 donate_argnums=(0, 1),
             )
@@ -249,11 +243,8 @@ class ShardedMultiKAccumulator:
 
         device_compact = jax.default_backend() != "cpu"
         self._device_compact = device_compact
-        cascade = jax.default_backend() == "tpu"
         self._resolvers = {
-            nw: make_sharded_resolver(
-                mesh, device_compact, cascade=cascade, narrow=nw
-            )
+            nw: make_sharded_resolver(mesh, device_compact, narrow=nw)
             for nw in sorted({narrow[k] for k in self._sparse_ks})
         }
 

@@ -10,7 +10,7 @@ single-threaded):
     then counts route to their owners with one ``psum_scatter`` over the
     ``table`` axis (column ``t`` owns the contiguous key range
     ``[t*S, (t+1)*S)``, ``S = 4^k / n_table``) followed by a ``psum``
-    over ``data`` — both ride ICI.
+    over ``data`` — both collectives between devices.
   * The streaming state keeps the table sharded ``P('table')`` as uint32
     limb pairs (exact past int32 per bin).
 
@@ -260,24 +260,19 @@ def update_count_state(
 
 
 # ---------------------------------------------------------------------------
-# Production hash-table pipeline: Pallas kernels inside shard_map
+# Production hash-table pipeline
 # ---------------------------------------------------------------------------
 #
 # The dense path above replicates extraction across the ``table`` axis,
-# which is fine for small table axes but scales extraction cost with the
-# table factor; and its XLA scatter-add is ~6x slower than the MXU
-# histogram.  The hash pipeline below is the deployment design: every
-# chip runs the fused Pallas kernels (canonical_hash_keys +
-# mxu_histogram16) on ITS OWN read shard only, and the per-chip [2^16]
-# hash tables merge with one ``psum_scatter`` over the ``data`` axis —
-# a 256 KiB reduce-scatter per step riding ICI, after which chip d owns
-# the contiguous global-bin range [d*2^16/N, (d+1)*2^16/N).  No key
-# routing, perfect linear scaling in chips, and exact (integer adds are
-# order-independent).  The tradeoff vs. an all-to-all-routed 2^20 table
-# is bin count: the global table here is 2^16 (the MXU histogram's cost
-# is linear in bins, so a 2^20 per-chip histogram would cost 16x; routing
-# keys to 2^20/N-bin owners instead requires an owner-sorted compaction,
-# which TPUs have no fast primitive for).
+# which scales extraction cost with the table factor.  In the hash
+# pipeline below every device hashes ITS OWN read shard only
+# (``hashcount.canonical_hash_keys`` + ``hash_histogram``), and the
+# per-device [2^16] tables merge with one ``psum_scatter`` over the
+# ``data`` axis — a 256 KiB reduce-scatter per step, after which device d
+# owns the contiguous global-bin range [d*2^16/N, (d+1)*2^16/N).  No key
+# routing, and exact (integer adds are order-independent).  The tradeoff
+# against an all-to-all-routed larger table is bin count: routing keys to
+# their owners would need an owner-sorted compaction per step.
 
 
 @jax.tree_util.register_dataclass
@@ -318,25 +313,25 @@ def make_hash_update_step(
     k: int,
     table_bits: int = 16,
     normalized: bool = True,
-    block_rows: Optional[int] = None,
     packed: bool = False,
 ):
     """Build the jitted hash-counting step over a 1-axis ``data`` mesh
     (or the ``data`` axis of a 2-axis mesh; the ``table`` axis, if any,
     must be 1 for this pipeline — the hash table shards over ``data``).
 
-    Returns ``(init, step, place_batch)``.  Per-chip batch rows must be a
-    multiple of ``block_rows``.
+    Returns ``(init, step, place_batch)``.
 
     ``packed=True``: the step consumes the 2-bit packed transport —
     ``step(state, codes, lengths, vbits)`` with ``vbits=None`` for clean
     batches; each chip unpacks its own shard (the interleave stays local,
-    nothing extra rides ICI) so host->device transfer per chip drops 4x.
+    nothing extra crosses the interconnect) so host->device transfer per
+    device drops 4x.
     """
-    from ..device.pallas_kernels import (
+    from ..device.hashcount import (
         canonical_hash_keys,
         canonical_hash_keys_packed,
-        mxu_histogram16,
+        check_table_bits,
+        hash_histogram,
     )
 
     n_data = mesh.shape["data"]
@@ -345,8 +340,7 @@ def make_hash_update_step(
             "hash pipeline shards its table over 'data'; use a mesh with "
             f"table=1 (got table={mesh.shape['table']})"
         )
-    if table_bits > 16:
-        raise ValueError("the MXU histogram shard is 2^16 bins; table_bits <= 16")
+    check_table_bits(table_bits)
     n_bins = 1 << table_bits
     if n_bins % n_data:
         raise ValueError(f"2^{table_bits} bins not divisible by data={n_data}")
@@ -359,18 +353,15 @@ def make_hash_update_step(
         if packed:
             keys, total, fwd = canonical_hash_keys_packed(
                 seqs, vbits, lengths, k, table_bits=table_bits,
-                block_rows=block_rows,
             )
         else:
             keys, total, fwd = canonical_hash_keys(
                 seqs, lengths, k, table_bits=table_bits,
-                normalized=normalized, block_rows=block_rows,
+                normalized=normalized,
             )
-        # hashes are already masked to table_bits, so bins >= 2^table_bits
-        # of the 2^16-bin kernel stay zero and the slice below is exact
-        local = mxu_histogram16(keys, None)[:n_bins]
-        # the ICI reduce-scatter stays int32 (per-step increments are
-        # bounded by batch lanes); limbs carry locally after the merge
+        local = hash_histogram(keys, n_bins)
+        # the reduce-scatter stays int32 (per-step increments are bounded
+        # by batch lanes); limbs carry locally after the merge
         upd = jax.lax.psum_scatter(local, "data", scatter_dimension=0, tiled=True)
         lo, hi = _acc64(table_lo_shard, table_hi_shard, upd)
         return (
@@ -384,9 +375,6 @@ def make_hash_update_step(
     shard_kwargs = dict(
         mesh=mesh,
         out_specs=(P("data"), P("data"), P(), P()),
-        # pallas_call outputs carry no varying-mesh-axes metadata, so the
-        # vma check cannot see that the kernel outputs vary over 'data'
-        check_vma=False,
     )
     local_fn = jax.shard_map(_local, in_specs=base_specs, **shard_kwargs)
     # packed batches with ambiguous bases carry a validity plane; clean
@@ -453,7 +441,6 @@ def sharded_hash_count_file(
     host_workers: Optional[int] = None,
     spill_dir: Optional[str] = None,
     packed: Optional[bool] = None,
-    block_rows: Optional[int] = None,
     checkpoint_every: Optional[int] = None,
     checkpoint_path: Optional[str] = None,
     resume_from: Optional[str] = None,
@@ -463,9 +450,9 @@ def sharded_hash_count_file(
     twin of ``device.pipeline.hash_count_file`` (same framing front, same
     return ``(n_bases, total, fwd, table)``, bit-identical table).
 
-    Reads shard over ``data``; each chip runs the fused Pallas pass on its
-    shard and one ``psum_scatter`` over ICI merges the per-chip histograms
-    into the bin range each chip owns (``make_hash_update_step``).
+    Reads shard over ``data``; each device hashes its shard and one
+    ``psum_scatter`` merges the per-device histograms into the bin range
+    each device owns (``make_hash_update_step``).
 
     Checkpoints use the SAME ``kind="hash"`` format as the flat driver
     (global table + tallies + record-aligned offset), so a stream
@@ -493,7 +480,7 @@ def sharded_hash_count_file(
     batch_size = -(-batch_size // n_data) * n_data
     init, step, place = make_hash_update_step(
         mesh, k, table_bits=table_bits, normalized=normalized,
-        block_rows=block_rows, packed=packed,
+        packed=packed,
     )
 
     def _validate(ck):

@@ -2,7 +2,7 @@
 
 A ``SequenceRecord`` is a view over one framed FASTA/FASTQ record.  Unlike the
 reference (which borrows from the parser's buffer), records here own their
-byte span — Python slicing copies anyway, and the batch/TPU path avoids
+byte span — Python slicing copies anyway, and the batch/device path avoids
 per-record objects entirely.
 """
 

@@ -4,7 +4,7 @@ Byte-exact re-implementations of the reference semantics
 (needletail ``src/sequence.rs``), vectorized with numpy lookup tables instead
 of per-byte match statements.  These same 256-entry tables are reused by the
 device path (``needletail_tpu.device``) as ``jnp.take`` gathers, so host and
-TPU results agree bit-for-bit.
+device results agree bit-for-bit.
 
 Key semantics preserved:
   * ``normalize`` (ref sequence.rs:19-62): case-fold, U->T, ``.``/``~`` -> ``-``,

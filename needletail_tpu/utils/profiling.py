@@ -1,8 +1,8 @@
 """Throughput metering and JAX profiler hooks.
 
 The reference has no in-library profiling (criterion benchmarks only,
-SURVEY.md §5); the TPU framework needs per-stage bytes/s counters for the
-"bases/sec/chip" metric and ``jax.profiler`` traces for kernel work.
+SURVEY.md §5); the device framework needs per-stage bytes/s counters for the
+"bases/sec" metric and ``jax.profiler`` traces for kernel work.
 """
 
 from __future__ import annotations

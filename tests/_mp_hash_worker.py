@@ -42,7 +42,7 @@ def main() -> None:
 
     devices = jax.devices()
     mesh = make_mesh(devices, data=len(devices), table=1)
-    init, step, _ = make_hash_update_step(mesh, k=21, block_rows=8)
+    init, step, _ = make_hash_update_step(mesh, k=21)
 
     # frame this process's byte range into a fixed local batch
     start, end = split_fastx_ranges(path, n)[pid]

@@ -211,19 +211,22 @@ class TestMultiK:
             )
 
 
-class TestDenseSpectrumMXU:
-    """dense_spectrum's MXU branch (forced on; interpret-mode kernel on CPU)
-    must equal the scatter branch bin-for-bin."""
+class TestDenseSpectrum:
+    """dense_spectrum (scatter-add into [4^k]) equals the numpy oracle's
+    canonical counts bin for bin."""
 
     @pytest.mark.parametrize("k", [4, 8, 9])
-    def test_matches_scatter(self, k):
+    def test_matches_host(self, k):
+        from needletail_tpu.utils.kmer_oracle import canonical_windows
+
         rng = np.random.default_rng(k)
         seqs = rng.choice(list(b"ACGTN"), size=(32, 64)).astype(np.uint8)
         lengths = rng.integers(0, 65, size=32).astype(np.int32)
         win = dkmers.canonical_kmers(jnp.asarray(seqs), jnp.asarray(lengths), k)
-        a = np.asarray(dcount.dense_spectrum(win, k, use_mxu=False))
-        b = np.asarray(dcount.dense_spectrum(win, k, use_mxu=True))
-        assert np.array_equal(a, b)
+        got = np.asarray(dcount.dense_spectrum(win, k))
+        values, valid, _ = canonical_windows(seqs, lengths, k)
+        want = np.bincount(values[valid].astype(np.int64), minlength=4**k)
+        assert np.array_equal(got, want)
 
 
 class TestHashCountFile:

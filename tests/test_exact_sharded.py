@@ -167,7 +167,7 @@ def test_sharded_bucketed_matches_flat(tmp_path):
 
 
 def test_compact_runs_device_matches_host():
-    """compact_runs_device (the TPU default flush path) must agree with
+    """compact_runs_device (the accelerator default flush path) must agree with
     host compaction bit-for-bit; exercised explicitly here because the
     CPU backend defaults to the host path."""
     import jax.numpy as jnp
@@ -206,8 +206,8 @@ class TestSingleDeviceMesh:
     """A 1-device mesh is the aliasing danger zone: device_put of an
     already-placed array returns an ALIAS there (reshard short-circuit),
     so the two key planes must be materialized as distinct buffers or the
-    per-step donation deletes one buffer under two names (TPU backend
-    InvalidArgument in the wild)."""
+    per-step donation deletes one buffer under two names (the backend
+    rejects it)."""
 
     def test_planes_have_distinct_storage(self):
         mesh = make_mesh(jax.devices()[:1], data=1, table=1)
@@ -252,16 +252,12 @@ class TestSingleDeviceMesh:
         assert np.array_equal(c1, c8)
 
 
-class TestCascadeResolver:
-    """The MXU slot-cascade resolver must equal the stable-sort resolver
-    (it is TPU-only in production; forced here on the CPU mesh via
-    interpret-mode Pallas)."""
+class TestShardedResolver:
+    """The per-shard resolver with device compaction must give each
+    shard's exact (key, count) runs, equal to numpy over that shard's lanes
+    and to the resolver without device compaction."""
 
-    def _buffers(self, mesh, run_len, n_distinct, cap=1 << 14, seed=3,
-                 narrow=False):
-        from jax.sharding import NamedSharding
-        from jax.sharding import PartitionSpec as P
-
+    def _lanes(self, run_len, n_distinct, cap=1 << 14, seed=3, narrow=False):
         rng = np.random.default_rng(seed)
         n = 8 * cap
         keys = np.full(n, 0xFFFFFFFFFFFFFFFF, np.uint64)
@@ -272,6 +268,12 @@ class TestCascadeResolver:
         lanes = np.repeat(distinct, run_len)[:n]
         rng.shuffle(lanes)
         keys[: lanes.size] = lanes
+        return keys
+
+    def _buffers(self, mesh, keys, narrow):
+        from jax.sharding import NamedSharding
+        from jax.sharding import PartitionSpec as P
+
         hi = (keys >> np.uint64(32)).astype(np.uint32)
         lo = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
         sh = NamedSharding(mesh, P("data"))
@@ -285,49 +287,52 @@ class TestCascadeResolver:
     def _compare(self, mesh, run_len, n_distinct, narrow=False):
         from needletail_tpu.parallel._resolve import make_sharded_resolver
 
-        fast = make_sharded_resolver(mesh, True, cascade=True, narrow=narrow)
-        safe = make_sharded_resolver(mesh, True, cascade=False, narrow=narrow)
+        keys = self._lanes(run_len, n_distinct, narrow=narrow)
+        compact = make_sharded_resolver(mesh, True, narrow=narrow)
+        plain = make_sharded_resolver(mesh, False, narrow=narrow)
         # resolvers donate: build two identical buffer sets
-        fb = self._buffers(mesh, run_len, n_distinct, narrow=narrow)
-        sb = self._buffers(mesh, run_len, n_distinct, narrow=narrow)
+        out_c = compact(*self._buffers(mesh, keys, narrow))
+        out_p = plain(*self._buffers(mesh, keys, narrow))
         if narrow:
-            gl, gc, gn = fast(*fb)
-            el, ec, en = safe(*sb)
-            gh = eh = None
+            (gl, gc, gn), (pl_, pc, pn) = out_c, out_p
+            gh = ph = None
         else:
-            gh, gl, gc, gn = fast(*fb)
-            eh, el, ec, en = safe(*sb)
-        assert np.array_equal(np.asarray(gn), np.asarray(en))
+            (gh, gl, gc, gn), (ph, pl_, pc, pn) = out_c, out_p
+        assert np.array_equal(np.asarray(gn), np.asarray(pn))
+        shard = keys.size // 8
         for s in range(8):
-            n = int(np.asarray(en)[s])
-            gs = slice(s * (gl.shape[0] // 8), None)
-            es = slice(s * (el.shape[0] // 8), None)
+            mine = keys[s * shard : (s + 1) * shard]
             if not narrow:
-                assert np.array_equal(
-                    np.asarray(gh)[gs][:n], np.asarray(eh)[es][:n]
-                )
-            assert np.array_equal(np.asarray(gl)[gs][:n], np.asarray(el)[es][:n])
-            assert np.array_equal(np.asarray(gc)[gs][:n], np.asarray(ec)[es][:n])
+                mine = mine[mine != np.uint64(0xFFFFFFFFFFFFFFFF)]
+            else:
+                mine = mine[(mine & np.uint64(0xFFFFFFFF)) != 0xFFFFFFFF]
+                mine = mine & np.uint64(0xFFFFFFFF)
+            want_k, want_c = np.unique(mine, return_counts=True)
+            n = int(np.asarray(gn)[s])
+            assert n == want_k.size
+            sl = slice(s * shard, s * shard + n)
+            got_k = np.asarray(gl)[sl].astype(np.uint64)
+            if not narrow:
+                got_k |= np.asarray(gh)[sl].astype(np.uint64) << np.uint64(32)
+            assert np.array_equal(got_k, want_k)
+            assert np.array_equal(np.asarray(gc)[sl], want_c)
+            # without compaction the same runs sit, in order, at the run heads
+            pcs = np.asarray(pc)[s * shard : (s + 1) * shard]
+            assert np.array_equal(pcs[pcs > 0], want_c)
 
-    def test_matches_safe_resolver(self, mesh):
-        # long runs: cascade succeeds (both levels)
+    def test_long_runs(self, mesh):
         self._compare(mesh, run_len=300, n_distinct=400)
 
-    def test_overflow_falls_back_exactly(self, mesh):
-        # singleton-dense stream: chunks overflow, full-stream fallback
+    def test_all_singletons(self, mesh):
         self._compare(mesh, run_len=1, n_distinct=8 * (1 << 14))
 
-    def test_second_level_overflow(self, mesh):
-        # runs short enough that level 2 overflows but level 1 fits:
-        # ~12 flags per 1024-lane chunk -> level-2 chunks hold ~96 < 128,
-        # while run_len=16 keeps level 1 at ~64 flags/chunk
+    def test_short_runs(self, mesh):
         self._compare(mesh, run_len=16, n_distinct=8192)
 
-    def test_narrow_matches_safe_resolver(self, mesh):
-        # single-u32 (k <= 15) resolvers: cascade path
+    def test_narrow_long_runs(self, mesh):
         self._compare(mesh, run_len=300, n_distinct=400, narrow=True)
 
-    def test_narrow_overflow_falls_back(self, mesh):
+    def test_narrow_all_singletons(self, mesh):
         self._compare(mesh, run_len=1, n_distinct=8 * (1 << 14), narrow=True)
 
 

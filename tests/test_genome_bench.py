@@ -102,11 +102,9 @@ def test_bench_flush_matches_host_oracle(genome_file):
 
 
 class TestAdaptiveCompaction:
-    """finalize_sparse skips distinct-to-front compaction when the cascade
-    overflow reveals a mostly-distinct stream (whole-genome regime): the
-    stable-sort compaction would shrink the pull by <2x while costing
-    ~6.7 ns/lane.  cascade=True exercises the interpret-mode Pallas path
-    on CPU."""
+    """finalize_sparse with distinct-to-front device compaction equals the
+    host compaction, for a mostly-distinct stream (whole-genome regime) and
+    for a low-diversity one."""
 
     def _parts(self, keys64):
         import jax.numpy as jnp
@@ -125,7 +123,6 @@ class TestAdaptiveCompaction:
         )
         got_k, got_c = finalize_sparse(
             self._parts(keys), pad_multiple=8192, device_compact=True,
-            cascade=True,
         )
         assert np.array_equal(want_k, got_k)
         assert np.array_equal(want_c, got_c)
@@ -142,12 +139,11 @@ class TestAdaptiveCompaction:
         )
         got_k, got_c = finalize_sparse(
             self._parts(keys), pad_multiple=8192, device_compact=True,
-            cascade=True,
         )
         assert np.array_equal(want_k, got_k)
         assert np.array_equal(want_c, got_c)
 
-    def test_cascade_overflow_returns_n(self):
+    def test_device_compaction_counts_distinct(self):
         import jax.numpy as jnp
 
         from needletail_tpu.device import count as dcount
@@ -158,36 +154,41 @@ class TestAdaptiveCompaction:
         hi_s, lo_s, counts = dcount.unique_counts(
             jnp.asarray(hi), jnp.asarray(lo)
         )
-        got = dcount.compact_runs_cascade(
-            hi_s, lo_s, counts, n_on_overflow=True
-        )
-        assert got[0] is None and got[3] == 16384
-        # default contract unchanged: bare None on overflow
-        assert dcount.compact_runs_cascade(hi_s, lo_s, counts) is None
+        h_c, l_c, c_c, n = dcount.compact_runs_device(hi_s, lo_s, counts)
+        assert int(n) == 16384
+        got = (np.asarray(h_c).astype(np.uint64) << np.uint64(32)) | np.asarray(l_c)
+        assert np.array_equal(got, keys)
+        assert (np.asarray(c_c) == 1).all()
 
 
-def test_pallas_planes_match_ladder_on_tiles(genome_file):
-    """bench.py's genome flush extracts with the Pallas key-plane kernel;
-    on halo tiles it must equal the XLA ladder bit-for-bit (interpret
-    mode on CPU)."""
-    import jax
+def test_tile_keys_match_ladder_on_tiles(genome_file):
+    """genome_spectrum's tile key step (packed transport, tile-owned
+    window slice) equals the XLA ladder over the same halo tiles."""
     import jax.numpy as jnp
 
     from needletail_tpu.device import count as _count
     from needletail_tpu.device import kmers as _kmers
-    from needletail_tpu.device.pallas_kernels import canonical_key_planes
-    from needletail_tpu.device.tiling import tile_sequence
+    from needletail_tpu.device.tiling import make_tile_key_fn, tile_sequence
+    from needletail_tpu.encoding import pack_codes_host
 
     fa = open(genome_file, "rb").read()
     seq = bytes(fa[fa.index(b"\n") + 1 :]).replace(b"\n", b"")
     tiles, lens = tile_sequence(seq, K, tile_len=8192)
     win = _kmers.canonical_kmers(jnp.asarray(tiles), jnp.asarray(lens), K)
     hi_x, lo_x = _count.mask_keys(win)
-    w_lad = win.hi.shape[1]
-    khi, klo, total, _f = canonical_key_planes(
-        jnp.asarray(tiles), jnp.asarray(lens), K
+    w = win.hi.shape[1]
+    # the packed transport needs a multiple of 8 bases per row
+    padded = np.pad(tiles, ((0, 0), (0, -tiles.shape[1] % 8)))
+    codes, vbits = pack_codes_host(padded, lens)
+    hi, lo = make_tile_key_fn(K, 8192, packed=True)(
+        jnp.asarray(codes), jnp.asarray(lens),
+        None if vbits is None else jnp.asarray(vbits),
     )
-    w = khi.shape[1] - K + 1
-    assert w == w_lad
-    assert np.array_equal(np.asarray(khi[:, :w]).reshape(-1), np.asarray(hi_x))
-    assert np.array_equal(np.asarray(klo[:, :w]).reshape(-1), np.asarray(lo_x))
+    n = tiles.shape[0]
+    own = min(8192, w)
+    assert np.array_equal(
+        np.asarray(hi), np.asarray(hi_x).reshape(n, w)[:, :own].reshape(-1)
+    )
+    assert np.array_equal(
+        np.asarray(lo), np.asarray(lo_x).reshape(n, w)[:, :own].reshape(-1)
+    )

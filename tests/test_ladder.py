@@ -1,7 +1,7 @@
 """Direct unit tests for device/_ladder.py against naive window packing.
 
-The ladders are the single source of truth for both the XLA and Pallas
-k-mer paths; this locks their recurrences independently of either kernel.
+The ladders are the source of truth for the device k-mer paths; this
+locks their recurrences independently of ``device.kmers``.
 """
 
 import jax.numpy as jnp

@@ -2,7 +2,7 @@
 over localhost, 4 virtual CPU devices each) split a FASTQ by byte range,
 frame locally, and run the sharded hash-counting step over the global
 8-device mesh.  The merged table must equal the single-process oracle —
-the CPU-simulated version of BASELINE config #5 (multi-host v5e-16)."""
+the CPU-simulated version of BASELINE config #5 (multi-host)."""
 
 import os
 import pathlib
@@ -63,15 +63,16 @@ def test_two_process_hash_pipeline_matches_oracle(tmp_path):
     # across ranges, but integer adds commute)
     import jax.numpy as jnp
 
-    from needletail_tpu.device.pallas_kernels import canonical_hash_keys, mxu_histogram16
+    from needletail_tpu.device.hashcount import canonical_hash_keys
     from needletail_tpu.io.fast_batch import fast_read_batches
 
     batch = next(iter(fast_read_batches(str(path), batch_size=128, max_len=128)))
     b = batch.pad_reads_to(128)
     keys, t, f = canonical_hash_keys(
-        jnp.asarray(b.seqs), jnp.asarray(b.lengths), 21, table_bits=16, block_rows=8
+        jnp.asarray(b.seqs), jnp.asarray(b.lengths), 21, table_bits=16
     )
-    expected = np.asarray(mxu_histogram16(keys, None))
+    keys = np.asarray(keys)
+    expected = np.bincount(keys[keys >= 0], minlength=1 << 16)
     assert total == int(t) and fwd == int(f)
     assert np.array_equal(table, expected), "\n".join(logs)
 
@@ -191,3 +192,21 @@ def test_two_process_multik_matches_oracle(tmp_path):
     )
     assert np.array_equal(keys, ok)
     assert np.array_equal(counts, oc)
+
+
+def test_framing_worker_imports_start_no_jax_backend():
+    """Spawned framing workers import the package (which imports jax) but
+    must never initialize a backend: on a GPU host each one would reserve
+    most of the card's memory."""
+    prog = (
+        "import needletail_tpu.io.parallel_host, needletail_tpu.io.fast_batch\n"
+        "from jax._src import xla_bridge\n"
+        "print(xla_bridge.backends_are_initialized())\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", prog],
+        capture_output=True, text=True, timeout=120,
+        cwd=str(pathlib.Path(__file__).resolve().parent.parent),
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"

@@ -60,7 +60,7 @@ def test_hash_state_bin_past_2_32(tmp_path):
     """Hash pipeline: skewed (homopolymer) bin crosses 2^32 exactly."""
     mesh = make_mesh(data=8, table=1)
     k = 9
-    init, step, place = make_hash_update_step(mesh, k=k, block_rows=8)
+    init, step, place = make_hash_update_step(mesh, k=k)
     seqs = np.full((64, 32), ord("A"), np.uint8)
     lengths = np.full(64, 32, np.int32)
     batch = place(jnp.asarray(seqs), jnp.asarray(lengths))
